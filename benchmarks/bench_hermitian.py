@@ -1,10 +1,10 @@
-"""On-chip Hermitian-cone benchmark: warm-seed speedup evidence.
+"""Hermitian-cone benchmark on one GPU: warm-seed speedup evidence.
 
-Solves batched complex (d=2) Hermitian-PSD programs at n=64 on one TPU
-chip, fixed 30 Newton iterations (headline convention), comparing the
+Solves batched complex (d=2) Hermitian-PSD programs at n=64, fixed 30
+Newton iterations (headline convention), comparing the
 warm-eigenvector-seed path (HermState, cones/hermitian.py) against the
 cold squaring estimator forced every iteration — the design the warm
-seeds replaced.  Writes BENCH_HERMITIAN.json.
+seeds replaced.  Prints one JSON line.
 
 Run: python benchmarks/bench_hermitian.py
 """
@@ -73,22 +73,21 @@ def run(S, d, n, m, iters, cold):
     )
     hmod.FORCE_COLD = cold
 
-    def go(bv):
-        r = solve_scenarios((blk,), (), bv, ws, sc, cfg)
-        float(np.asarray(r.y).sum())
-        return r
+    bv = jnp.asarray(b)
+
+    def go():
+        return jax.block_until_ready(solve_scenarios((blk,), (), bv, ws, sc,
+                                                     cfg))
 
     t0 = time.perf_counter()
-    r = go(jnp.asarray(b))
+    r = go()
     compile_s = time.perf_counter() - t0
     it = np.asarray(r.num_iterations)
     fails = int(np.asarray(r.fail).sum())
     best = float("inf")
-    for rep in range(3):
-        bv = jnp.asarray(b * (1.0 + 1e-6 * (rep + 1)
-                              + 1e-8 * (time.time() % 97)))
+    for _ in range(3):
         t0 = time.perf_counter()
-        go(bv)
+        go()
         best = min(best, time.perf_counter() - t0)
     hmod.FORCE_COLD = False
     return dict(iters_per_sec=round(int(it.sum()) / best, 1),
@@ -99,10 +98,11 @@ def run(S, d, n, m, iters, cold):
 def main():
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from chip_smoke import card_line, require_gpu
+    from conex_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    device = require_gpu(jax.devices())
 
     S, d, n, m, iters = 32, 2, 64, 16, 30
     warm = run(S, d, n, m, iters, cold=False)
@@ -113,21 +113,19 @@ def main():
         description=(
             "Batched complex Hermitian-PSD SDPs (d=2, n=64, m=16, S=32 "
             "scenarios, f32, fixed 30 Newton iterations, scaled-mu cap "
-            "1e-4) on one TPU chip: the HermState warm-eigenvector path "
+            "1e-4) on one card: the HermState warm-eigenvector path "
             "vs the cold squaring estimator every iteration (the design "
             "it replaced — reference analogue: fresh random-seeded "
             "Lanczos per iteration, hermitian_psd.cc:59)."
         ),
-        device=str(jax.devices()[0]),
+        device=device.device_kind,
+        card=card_line(),
         warm=warm,
         cold=cold,
         warm_over_cold=round(
             warm["iters_per_sec"] / cold["iters_per_sec"], 2),
     )
-    with open(os.path.join(ROOT, "BENCH_HERMITIAN.json"), "w") as f:
-        json.dump(payload, f, indent=2)
-    print(json.dumps({"warm_over_cold": payload["warm_over_cold"],
-                      "ok": True}))
+    print(json.dumps(payload))
 
 
 if __name__ == "__main__":

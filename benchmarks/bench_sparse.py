@@ -1,18 +1,18 @@
-"""On-chip sparse/supernodal benchmark: LQR-chain-style sparse SDP.
+"""Sparse/supernodal benchmark on one GPU: LQR-chain-style sparse SDP.
 
-The TPU counterpart of the reference's sparse assembly benchmark
+The counterpart of the reference's sparse assembly benchmark
 (/root/reference/conex/test/assembly_test.cc, LDLT.Benchmark2): a chain
 of N LMI cliques of order nc, clique i over the 6-variable window
 starting at 3i (overlap 3).  Solved end-to-end (assembly + supernodal
-factorization + solves) through the block-compressed supernodal path on
-one TPU chip, batched over B independent instances, vs the reference
-single-core (baseline/bench_reference sparse N nc — same generator
-shape, fixed 30 Newton iterations both sides).
+factorization + solves) through the block-compressed supernodal path,
+one instance per solve, vs the reference single-core
+(baseline/bench_reference sparse N nc — same generator shape, fixed 30
+Newton iterations both sides).
 
 Also records the compile times of the scan/compressed structure vs the
 per-clique unrolled structure (the SURVEY §5.7 long-context analogue).
 
-Writes BENCH_SPARSE.json.  Run: python benchmarks/bench_sparse.py
+Prints one JSON row per chain length.  Run: python benchmarks/bench_sparse.py
 """
 
 import json
@@ -50,10 +50,7 @@ def chain_program(N, nc, B, rng, dtype):
     return A, b, n_vars
 
 
-def solve_tpu(N, nc, B, iters=30, scan_structure=True):
-    import jax
-    import jax.numpy as jnp
-
+def solve_chain(N, nc, B, iters=30, scan_structure=True):
     from conex_tpu import Program, SolverConfig
     from conex_tpu import program as program_mod
 
@@ -74,23 +71,21 @@ def solve_tpu(N, nc, B, iters=30, scan_structure=True):
                 variables=list(range(3 * i, 3 * i + w)),
             )
         # One instance per solve (B=1), exactly the reference's program
-        # shape — the chip's parallelism comes from the batched per-clique
-        # cone kernels and the supernodal scan, not scenario batching.
+        # shape — the device's parallelism comes from the batched
+        # per-clique cone kernels and the supernodal scan, not scenario
+        # batching.
         cfg = SolverConfig(
             max_iterations=iters, final_centering_steps=0,
             inv_sqrt_mu_max=1e15, fixed_iterations=True,
             inv_sqrt_mu_cap_scaled=100.0,
         )
         t0 = time.perf_counter()
-        res = prog.solve(b[0], cfg)
-        float(np.asarray(res.y).sum())
+        prog.solve(b[0], cfg)  # Program.solve returns host arrays
         compile_s = time.perf_counter() - t0
         best = float("inf")
-        for rep in range(3):
-            bs = b[0] * (1.0 + 1e-6 * (rep + 1) + 1e-7 * (time.time() % 97))
+        for _ in range(3):
             t0 = time.perf_counter()
-            r = prog.solve(jnp.asarray(bs), cfg)
-            float(np.asarray(r.y).sum())
+            r = prog.solve(b[0], cfg)
             best = min(best, time.perf_counter() - t0)
         it = int(np.asarray(r.num_iterations))
         fail = bool(np.asarray(r._raw.fail))
@@ -118,50 +113,28 @@ def reference_rate(N, nc):
 
 
 def main():
-    os.environ["CONEX_TPU_DISABLE_FUSED_SCHUR"] = "1"
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from chip_smoke import card_line, require_gpu
+    from conex_tpu.utils.compile_cache import enable_compile_cache
 
-    results = []
+    enable_compile_cache()
+    device = require_gpu(jax.devices())
+    card = card_line()
     for (N, nc) in [(40, 8), (200, 8)]:
         ref = reference_rate(N, nc)
         log(f"reference N={N}: {ref}")
-        row = dict(cliques=N, order=nc, num_vars=3 * N + 3,
-                   ref=ref)
-        row["tpu_compressed"] = solve_tpu(N, nc, 1, scan_structure=True)
-        log(f"tpu compressed N={N}: {row['tpu_compressed']}")
+        row = dict(cliques=N, order=nc, num_vars=3 * N + 3, ref=ref,
+                   device=device.device_kind, card=card)
+        row["compressed"] = solve_chain(N, nc, 1, scan_structure=True)
         if N <= 40:
             # The unrolled structure's compile time scales with clique
             # count; only feasible at small N (that's the point).
-            row["tpu_unrolled"] = solve_tpu(N, nc, 1, scan_structure=False)
-            log(f"tpu unrolled N={N}: {row['tpu_unrolled']}")
-        if ref and not row["tpu_compressed"]["fail"]:
+            row["unrolled"] = solve_chain(N, nc, 1, scan_structure=False)
+        if ref and not row["compressed"]["fail"]:
             row["speedup"] = round(
-                row["tpu_compressed"]["iters_per_sec"]
-                / ref["iters_per_sec"], 2)
-        results.append(row)
-        log(json.dumps(row))
-
-    payload = dict(
-        description=(
-            "LQR-chain sparse SDP (N cliques of order nc over 6-variable "
-            "windows, overlap 3 — assembly_test.cc LDLT.Benchmark2 shape) "
-            "solved end-to-end: reference single-core fixed-30 vs the "
-            "block-compressed supernodal path on one TPU chip (f32, "
-            "scaled-mu cap 1e-4).  compile_seconds contrasts the "
-            "O(1)-compile scan structure with the per-clique unrolled "
-            "structure."
-        ),
-        device=str(jax.devices()[0]),
-        rows=results,
-    )
-    with open(os.path.join(ROOT, "BENCH_SPARSE.json"), "w") as f:
-        json.dump(payload, f, indent=2)
-    print(json.dumps({"rows": len(results), "ok": True}))
+                row["compressed"]["iters_per_sec"] / ref["iters_per_sec"], 2)
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""conex_tpu: a TPU-native geodesic interior-point solver for symmetric cones.
+"""conex_tpu: a JAX geodesic interior-point solver for symmetric cones.
 
-A from-scratch JAX/XLA/Pallas re-implementation of the capabilities of
+A from-scratch JAX/XLA re-implementation of the capabilities of
 ToyotaResearchInstitute/conex: linear programs, second-order cone programs,
 semidefinite programs (real and hypercomplex Hermitian PSD cones), affine
 equality constraints, and quadratic costs, solved with the geodesic

@@ -1,13 +1,13 @@
 """Hypercomplex matrix algebras: real, complex, quaternion, octonion.
 
-TPU-native re-implementation of the reference's jordan_matrix_algebra.{h,cc}
+A JAX re-implementation of the reference's jordan_matrix_algebra.{h,cc}
 and exponential_map.{h,cc}.  A matrix over a division algebra of dimension
 d in {1, 2, 4, 8} is stored as an array (..., d, n, n) — the reference's
 "vector of real matrices" (jordan_matrix_algebra.h:8) becomes a stacked
 axis, and the 8x8 sign/index multiplication tables
 (jordan_matrix_algebra.cc:106-122) become a constant (d, d, d) structure
 tensor contracted with einsum, so one algebra multiply is a single fused
-MXU contraction instead of d^2 dispatched matmuls.
+contraction instead of d^2 dispatched matmuls.
 
 For the associative algebras (d <= 4) the faithful real representation
 R(X) (dn x dn) turns spectral questions into ordinary real linear algebra:

@@ -1,34 +1,31 @@
-"""Split-precision matmul modes for the TPU MXU.
+"""Matmul precision modes for the cone hot paths.
 
-The TPU MXU multiplies in bfloat16 (8 mantissa bits) and accumulates in
-f32.  XLA's *default* precision therefore truncates f32 matmul operands to
-bf16 — measured ~4e-4 Frobenius relative error on the benchmark Schur
-panel, which destroys the positive-definiteness of the Schur complement
-long before the reference's 1e-8 duality-gap territory.  XLA's
-HIGH/HIGHEST software-emulated f32 passes measured ~200x slower than a
-single bf16 pass on this chip — unusable in the hot loop.
+The reference is f64 end-to-end on CPU (cone_program.cc).  The Schur
+panels, WS products and the geodesic exponential here run in the mode set
+by ``SolverConfig.schur_precision``:
 
-This module implements the classical split-precision ladder instead: write
-x = hi + lo (+ lo2) with each term a bf16, expand the product, and drop
-the smallest cross terms.
+    default:          XLA's default precision.  On a GPU, f32 products may
+                      run as TF32 (10-bit mantissa); f64 products are f64.
+    highest, float32: ``Precision.HIGHEST``, full f32 products.
+    x3: (xh + xl)(yh + yl) ~ xh yh + xh yl + xl yh, bf16 pieces — ~2^-16
+    x6: 3-way bf16 split, 6 products                          — ~f32
+    ozaki: f64 data as exact bf16 slices, products summed in f64 (below).
 
-    x3: (xh + xl)(yh + yl) ~ xh yh + xh yl + xl yh        — ~2^-16 rel err
-    x6: 3-way split, 6 products                           — ~f32 rel err
-
-Each pass is a full-speed MXU bf16 matmul with f32 accumulation, so x3
-costs ~3 bf16 passes and x6 ~6 — versus ~200 for XLA HIGHEST.  Every
-partial product is wrapped in ``jax.lax.optimization_barrier`` so XLA's
-algebraic simplifier cannot re-associate the split back into a single
-truncated dot (observed: without barriers the three x3 dots get folded
-into one bf16 dot and the result is bit-identical to default precision).
+The split ladder writes x = hi + lo (+ lo2) with each term a bf16, expands
+the product and drops the smallest cross terms; each pass is a bf16 matmul
+with f32 accumulation.  Every partial product is wrapped in
+``jax.lax.optimization_barrier`` so XLA's algebraic simplifier cannot
+re-associate the split back into a single truncated dot (without barriers
+the three x3 dots fold into one bf16 dot).  Which mode, if any, beats the
+native f32 or f64 product on a given card is a measurement
+(chip_smoke.py phase 3 runs them all).
 
 The active mode is a trace-time setting (set it before/while tracing a
 jitted function; it is baked into the trace, which is correct because the
 solver retraces per static SolverConfig).
 
-reference role: the conex reference is f64 end-to-end on CPU
-(cone_program.cc); this ladder is the TPU-native answer to SURVEY.md §7's
-"f32 + compensated accumulation for Schur panels" risk item.
+reference role: this ladder answers SURVEY.md §7's "f32 + compensated
+accumulation for Schur panels" risk item.
 """
 
 from __future__ import annotations
@@ -67,11 +64,11 @@ def mode(m: str):
 
 
 # ---------------------------------------------------------------------------
-# Ozaki-scheme f64 einsum on the bf16 MXU
+# Ozaki-scheme f64 einsum from bf16 products
 # ---------------------------------------------------------------------------
 #
 # The x3/x6 ladder below bottoms out at ~2^-24 relative error: every pass
-# output passes through the MXU's f32 accumulator, and the hi*hi pass's own
+# output passes through an f32 accumulator, and the hi*hi pass's own
 # f32 rounding is ~1 ulp of the result no matter how many splits are added.
 # To go below that floor the high passes must be EXACT, which is the Ozaki
 # error-free-transformation scheme: scale each operand by a power of two,
@@ -84,29 +81,26 @@ def mode(m: str):
 # for exactness are split by promoting contracted axes to batch axes and
 # finishing the reduction in f64.
 #
-# Cost: ~21-28 full-speed bf16 MXU passes versus ~50-100 bf16-pass
-# equivalents for XLA's emulated-f64 matmul on TPU (PRECISION.md) — the
-# engine behind SolverConfig.schur_precision="ozaki", the reference-
-# accuracy-at-speed operating point.
+# Cost: ~21-28 bf16 passes with f32 accumulation per product — the engine
+# behind SolverConfig.schur_precision="ozaki".  Whether it beats the
+# card's native f64 matmul is a measurement, not an assumption.
 
 # Slice coverage per operand (and kept pass depth).  48 bits leaves
 # ~1e-13-class G-entry errors, which is exactly the Cholesky breakdown
 # edge at the solver's endgame (cond(G) ~ 1/mu_scaled reaches 1e12+ at
-# the reference's accuracy targets): measured, 48 bits loses scenarios to
-# factorization failures that 56 bits solves 8/8.  56 bits = s=7 slices
-# at t=8 (28 passes), ~2^-56 entry error — genuine f64-class.
+# the reference's accuracy targets): 48 bits lost scenarios to
+# factorization failures that 56 bits solved.  56 bits = s=7 slices at
+# t=8 (28 passes), ~2^-56 entry error — genuine f64-class.
 OZAKI_MIN_BITS = 56
 
 
 # Pass arithmetic: "bf16" slices accumulate in f32 (exact up to
 # K*2^(2t) <= 2^24, forcing axis promotion on large contractions) —
-# the default.  "int8" slices with int32 accumulation would lift the
-# exactness bound to K ~ 2^17 at half the slice bytes, but MEASURED
-# on v5e the int8 einsum lowers through the same f32-class accumulator:
-# a K=1e4 contraction of 13-bit integer products came back with 3e-4
-# relative error on the result diagonal (exact on CPU).  The int8 impl
-# stays available for backends with a true int32 MXU accumulation path
-# (CONEX_TPU_OZAKI_IMPL=int8).
+# the default.  "int8" slices with int32 accumulation lift the
+# exactness bound to K ~ 2^17 at half the slice bytes, but only where the
+# backend accumulates int8 products exactly in int32 (exact on CPU; an
+# accelerator may lower it through an f32-class accumulator).  Select it
+# with CONEX_TPU_OZAKI_IMPL=int8.
 import os as _os
 
 # "hybrid" (default): double-float slicing, 2 f64 elementwise ops per
@@ -190,11 +184,9 @@ def _ozaki_slices_hybrid(x, term: str, contracted: str, t: int, s: int):
     exact t=8 slices extracted with f32 arithmetic, the remainder as 3
     bf16 ladder pieces.
 
-    Rationale: TPU f64 elementwise arithmetic is software-emulated and the
-    pure-f64 slicing loop (~30 f64 ops/element/iteration) dominated the
-    mixed-precision solve (measured ~30x above the compute/HBM roofline).
-    This path touches f64 only twice per element (x/mu and y - f32(y));
-    everything else is f32/bf16 VPU work.
+    Rationale: the pure-f64 slicing loop costs ~30 f64 ops per element
+    per slice.  This path touches f64 only twice per element (x/mu and
+    y - f32(y)); everything else is f32/bf16 elementwise work.
 
     Error: the ladder pieces have magnitude <= 2^-25 of the row scale, so
     their passes' f32-accumulator rounding (2^-24 relative to the pass) is
@@ -219,8 +211,8 @@ def _ozaki_slices_hybrid(x, term: str, contracted: str, t: int, s: int):
     # Every extracted piece is wrapped in optimization_barrier BEFORE the
     # following subtraction: without it XLA's algebraic simplifier folds
     # the cancel-and-subtract patterns (x - f32(x) -> 0 etc.) exactly as
-    # documented for the x3/x6 ladder — observed on-chip as the low
-    # pieces coming back all-zero and duality gaps collapsing to ~1e-3.
+    # documented for the x3/x6 ladder, and the low pieces come back
+    # all-zero.
     c = jax.lax.optimization_barrier(y.astype(jnp.float32))
     # Exact absolute-position t-bit slices of c, f32 arithmetic (the
     # round-and-subtract extraction is exact in round-to-nearest).
@@ -249,8 +241,8 @@ def _ozaki_slices_hybrid(x, term: str, contracted: str, t: int, s: int):
 # Stacked-pass execution for the hybrid impl: contract ALL slice pairs in
 # one (or two) einsums with the slice axes as batch dims, then combine
 # with small masked reductions.  The per-pass path issues ~26 einsums per
-# call site (~600 XLA ops per Newton iteration across the cone kernels),
-# which is op-dispatch-bound at n <= 100; the stacked path issues ~2.
+# call site (~600 XLA ops per Newton iteration across the cone kernels);
+# the stacked path issues ~2.
 OZAKI_STACKED = _os.environ.get("CONEX_TPU_OZAKI_STACKED", "0") == "1"
 
 
@@ -367,8 +359,8 @@ class _OzakiPlan:
             # Only the exact-slice passes need the integer-exactness
             # bound K <= 2^(24-2t); narrow the slice width (more slices,
             # same 24-bit coverage) before resorting to axis promotion —
-            # a promoted pass output carries the promoted axis and was
-            # measured OOMing HBM at n=300 panel shapes.
+            # a promoted pass output carries the promoted axis, which
+            # multiplies the memory of n=300-class panels.
             while K() > 4096 and contracted:
                 promoted.append(contracted.pop(0))
             Kv = K()
@@ -466,8 +458,8 @@ def _ozaki_einsum(pattern: str, x, y, min_bits=None,
         # Stacking materializes (s, s, out) before the masked reduce —
         # only worth it (and only SAFE) when the output is small relative
         # to the operands (G/AQc-class contractions, not the panel
-        # einsums whose output IS the big tensor: measured 80GB HBM
-        # allocation stacking the panel at n=100 B=52).
+        # einsums whose output IS the big tensor: stacking multiplies
+        # the panel's memory by s^2 = 36).
         sizes = {}
         for term, shape in ((plan.a, x.shape), (plan.b, y.shape)):
             for ch, d in zip(term, shape):
@@ -491,7 +483,8 @@ def _ozaki_einsum(pattern: str, x, y, min_bits=None,
         # accumulation: their fused full-contraction f32 error is
         # <= 2^-24 * pass magnitude <= 2^-49 absolute.  Running them
         # unpromoted avoids materializing the (promoted + out)-shaped
-        # pass outputs — the dominant HBM cost of promoted contractions.
+        # pass outputs — the dominant memory traffic of promoted
+        # contractions.
         fused_ok = plan.impl == "hybrid" and (q > plan.n_h or r > plan.n_h)
         if n_promoted and fused_ok:
             p = jnp.einsum(direct_pattern, xs[q - 1], ys[r - 1],
@@ -522,10 +515,9 @@ def _ozaki_applies(m, x, y):
 
 
 def _split2(x):
-    # The barrier on hi must come BEFORE the subtraction: XLA:TPU's
-    # algebraic simplifier pushes the outer bf16 convert through the
-    # subtract, folding bf16(x - f32(bf16(x))) to bf16(x) - bf16(x) == 0
-    # (observed on-chip: the lo term comes back all-zero without it).
+    # The barrier on hi must come BEFORE the subtraction: XLA's algebraic
+    # simplifier may push the outer bf16 convert through the subtract,
+    # folding bf16(x - f32(bf16(x))) to bf16(x) - bf16(x) == 0.
     hi = jax.lax.optimization_barrier(x.astype(jnp.bfloat16))
     lo = (x - hi.astype(x.dtype)).astype(jnp.bfloat16)
     return hi, lo
@@ -559,8 +551,7 @@ def einsum(pattern: str, x, y, mode: str | None = None,
     if m == "highest":
         return jnp.einsum(pattern, x, y, precision=jax.lax.Precision.HIGHEST)
     if m == "float32":
-        # One f32 pass where the backend supports it natively (CPU); on
-        # TPU this is the same HIGHEST software emulation.
+        # Full f32 products (never TF32).
         return jnp.einsum(pattern, x, y, precision=jax.lax.Precision.HIGHEST)
 
     acc = jnp.float32

@@ -1,6 +1,6 @@
 """Spin-factor (Lorentz cone) Jordan algebra, batched.
 
-TPU-native vectorized re-implementation of the spectral machinery in
+Vectorized re-implementation of the spectral machinery in
 /root/reference/conex/soc_constraint.cc:14-191.  Elements are vectors
 x = (x0, x1) in R^{1+n}; every op below is closed-form in the two
 eigenvalues lam_pm = x0 +/- ||x1|| and vectorizes over an arbitrary batch of

@@ -1,8 +1,8 @@
 """Dense symmetric-matrix kernels: Padé exponential and asymmetric Lanczos.
 
-TPU-native re-implementations of the reference's
-exponential_map_pade.{h,cc} and approximate_eigenvalues.{h,cc}.  Everything
-is batched over a leading axis and built from MXU-friendly matmuls; the
+Re-implementations of the reference's exponential_map_pade.{h,cc} and
+approximate_eigenvalues.{h,cc}.  Everything is batched over a leading
+axis and built from batched matmuls; the
 Lanczos early-exit (a data-dependent break in the reference,
 approximate_eigenvalues.cc:217-232) becomes a fixed-length ``lax.scan`` with
 masking so the whole thing stays inside one compiled program.
@@ -37,11 +37,11 @@ def expm_pade(A: jnp.ndarray) -> jnp.ndarray:
 def expm_taylor(A: jnp.ndarray, degree: int = 8, squarings: int = 3):
     """exp(A) via degree-``degree`` Taylor of exp(A / 2^s) + s squarings.
 
-    Pure matmuls — the TPU-native exponential for the geodesic step, where
-    the argument satisfies ||step * d|| <= sqrt(2) by the step-size rule
+    Pure matmuls — the exponential for the geodesic step, where the
+    argument satisfies ||step * d|| <= sqrt(2) by the step-size rule
     (cone_program.cc:423-426), giving ~1e-12 accuracy at the defaults.
-    Replaces the Pade solve in the hot path: XLA:TPU's LuDecomposition is
-    F32-only and serial, while this runs at any precision on the MXU.
+    Replaces the Pade solve in the hot path: it needs no batched LU
+    factorization and runs in any precision mode of algebra/mm.py.
     Batched over leading axes.
     """
     n = A.shape[-1]
@@ -136,15 +136,14 @@ def approximate_eigenvalues(WS, W, r, num_iter: int):
 def _dominant_rayleigh_vec(B, num_squarings: int):
     """(lam_max, u, v) of B (real positive spectrum) via normalized repeated
     squaring + a two-sided Rayleigh quotient on the dominant left/right
-    eigenvector estimates.  Pure matmuls — the TPU-native replacement for
+    eigenvector estimates.  Pure matmuls — the replacement for
     tridiagonal eigensolvers, which are branchy bisection loops that destroy
     XLA compile and runtime inside the jitted iteration.
 
     On f64 inputs the squaring passes run in f32 (eigenvector estimates
     only — the Rayleigh quotient below is second-order accurate in the
     eigenvector error, so f32-quality vectors give ~1e-14-class
-    eigenvalues) while the quotient itself uses the f64 matrix.  On TPU
-    this replaces ~28 emulated-f64 matmuls with f32 ones."""
+    eigenvalues) while the quotient itself uses the f64 matrix."""
     in_dtype = B.dtype
     Bq = B.astype(jnp.float32) if in_dtype == jnp.float64 else B
     n = B.shape[-1]
@@ -278,9 +277,7 @@ def extreme_eigenvalues_warm(M, vhi, uhi, vlo, ulo, lam_prev,
     )
     # The power-iteration sweep only produces eigenvector *estimates* (the
     # Rayleigh quotient below is second-order accurate in their error), so
-    # on f64 inputs it runs in f32 — on TPU that's 16 MXU matvec steps
-    # instead of 16 emulated-f64 ones, the dominant per-iteration cost of
-    # the f64 accuracy path.
+    # on f64 inputs it runs in f32.
     in_dtype = M.dtype
     it_dtype = jnp.float32 if in_dtype == jnp.float64 else in_dtype
     Mi = M.astype(it_dtype)

@@ -1,6 +1,6 @@
 """Affine equality constraints A y = b.
 
-TPU-native equivalent of the reference's EqualityConstraints
+The equivalent of the reference's EqualityConstraints
 (/root/reference/conex/equality_constraint.{h,cc}).  An equality block has no
 cone iterate; it contributes the off-diagonal blocks [0 A^T; A 0] to the KKT
 matrix and b to the residual AQc (equality_constraint.cc:13-28), and its dual

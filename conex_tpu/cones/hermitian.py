@@ -1,6 +1,6 @@
 """Hermitian PSD cones over hypercomplex algebras, batched.
 
-TPU-native re-implementation of the reference's HermitianPsdConstraint<T>
+A JAX re-implementation of the reference's HermitianPsdConstraint<T>
 for T in {Real, Complex, Quaternions, Octonions}
 (/root/reference/conex/hermitian_psd.{h,cc}).  A block holds B same-shape
 Hermitian LMIs ``C_b - sum_i y_i A_{b,i} >= 0`` in the algebra of dimension

@@ -1,10 +1,10 @@
 """Linear (nonnegative-orthant) cone block.
 
-TPU-native re-implementation of the reference's LinearConstraint
+A JAX re-implementation of the reference's LinearConstraint
 (/root/reference/conex/linear_constraint.{h,cc}).  The cone is
 ``c - A^T y >= 0`` elementwise; the iterate ``w`` is a positive vector.
-Everything is elementwise/VPU work plus two matmuls in the Schur assembly
-(the MXU path), so no Pallas is needed: XLA fuses the elementwise chains.
+Everything is elementwise work plus two matmuls in the Schur assembly,
+so no hand-written kernel is needed: XLA fuses the elementwise chains.
 
 Key formulas (reference file:line cited per method):
   minus_s = A y - k c                        (linear_constraint.cc:164-168)

@@ -1,6 +1,6 @@
 """Quadratic cost block: adds Q to the KKT matrix (a cost, not a cone).
 
-TPU-native re-implementation of the reference's QuadraticFunction
+A JAX re-implementation of the reference's QuadraticFunction
 (/root/reference/conex/quadratic_cost.cc).  Solves
     maximize  b'y - 1/2 y'Q y   subject to cones
 by contributing Q to the top-left KKT block (quadratic_cost.cc:46-57).

@@ -1,6 +1,6 @@
 """Q-weighted second-order cones and the quadratic epigraph, batched.
 
-TPU-native re-implementation of the reference's QuadraticConstraintBase
+A JAX re-implementation of the reference's QuadraticConstraintBase
 (/root/reference/conex/quadratic_cone_constraint.{h,cc}): the Lorentz cone
 under the inner product <x, y> = x0 y0 + x1' Q y1 (Q PSD; Q = None means
 identity, recovering the plain SOC).  All spin-factor spectral machinery is

@@ -1,6 +1,6 @@
 """Second-order (Lorentz) cone blocks, batched.
 
-TPU-native re-implementation of the reference's SOCConstraint
+A JAX re-implementation of the reference's SOCConstraint
 (/root/reference/conex/soc_constraint.{h,cc}).  One block holds a *batch* of
 B same-dimension cones over the same variable subset; all spin-factor math is
 closed-form in the two eigenvalues and vectorizes across the batch, replacing

@@ -2,7 +2,7 @@
 
 Mirrors the reference's ``SolverConfiguration`` struct
 (/root/reference/conex/cone_program.h:17-38) field-for-field, with the same
-defaults, plus TPU-build additions (dtype selection).
+defaults, plus this rebuild's additions (dtype selection, precision).
 
 Fields that alter the *structure* of the compiled program (line search on/off,
 kkt solver mode, max_iterations, centering step counts) are static — changing
@@ -52,7 +52,7 @@ class SolverConfig:
     enable_rescaling: bool = True
     iterative_refinement_iterations: int = 0
 
-    # --- TPU-build additions ---
+    # --- Additions (not in the reference) ---
     # Solve dtype.  None => inherit from problem data.
     dtype: Optional[str] = None
     # Fixed-iteration throughput mode: run exactly ``max_iterations`` Newton
@@ -65,9 +65,9 @@ class SolverConfig:
     # *unscaled* target, adjusted by the first-iteration rescaling,
     # cone_program.cc:343-357).  The scaled mu is what governs the KKT
     # matrix conditioning, so this is the knob that keeps the Schur
-    # complement factorable at a given arithmetic precision: f32 Cholesky
-    # breaks down near scaled mu ~ 2e-6 on the dense-SDP workload.  inf
-    # disables (default).
+    # complement factorable at a given arithmetic precision: with f32 or
+    # coarser products the Cholesky factor breaks down once cond(G) ~
+    # 1/mu_scaled outgrows the precision.  inf disables (default).
     inv_sqrt_mu_cap_scaled: float = float("inf")
     # Mu-stall detection: when the mu update makes less than
     # mu_stall_tolerance relative progress on k = 1/sqrt(mu) for
@@ -93,19 +93,18 @@ class SolverConfig:
     mu_floor_drop_ratio: float = 0.5
     mu_floor_kmax_fraction: float = 0.1
     # Matmul precision mode for the cone hot paths (Schur panels, WS
-    # products, geodesic exponential) — see algebra/mm.py.  On TPU the MXU
-    # multiplies in bf16; "default" lets XLA truncate f32 operands (fast,
-    # ~4e-4 rel err), "x3"/"x6" run the split-precision ladder (~3x/6x one
-    # bf16 pass, ~2^-16 / ~f32 rel err); these are ignored for f64 problem
-    # data.  "ozaki" applies to f64 data: the heavy matmuls run as exact
-    # bf16 MXU passes combined in f64 (~2^-48-class entry error at
-    # ~21-36 bf16 passes) instead of XLA's ~50-100x emulated-f64 path —
-    # the reference-accuracy-at-speed operating point.
+    # products, geodesic exponential) — see algebra/mm.py.  "default" is
+    # XLA's default precision (a GPU may run f32 products as TF32);
+    # "highest"/"float32" force full f32 products; "x3"/"x6" run the bf16
+    # split-precision ladder (~2^-16 / ~f32 rel err); these are ignored
+    # for f64 problem data.  "ozaki" applies to f64 data: the heavy
+    # matmuls run as exact bf16 passes combined in f64 (~2^-56-class entry
+    # error at ~21-36 bf16 passes) instead of native f64 products.
     schur_precision: str = "default"
     # Precision island for the dense KKT factor+solve: "float64" casts the
     # assembled Schur complement to f64 for factorization and the
-    # triangular solves (a tiny (m+dual)^2 matrix — cheap even with
-    # emulated f64 on TPU), casting solutions back to the solve dtype.
+    # triangular solves (a small (m+dual)^2 matrix), casting solutions
+    # back to the solve dtype.
     # None = factor in the solve dtype.  Dense path only.
     kkt_island_dtype: Optional[str] = None
 

@@ -1,7 +1,7 @@
 """Multi-device execution: scenario batching (DP) and cone sharding (TP).
 
 The reference is single-threaded (SURVEY.md §2.6); this module is the
-TPU-native scale-out design:
+scale-out design:
 
 * **Scenario batching (DP)** — many independent cone programs with the same
   structure solve as one vmapped program; sharding the scenario axis over a
@@ -9,7 +9,7 @@ TPU-native scale-out design:
 
 * **Cone sharding (TP)** — one large program whose cone blocks are
   partitioned across chips.  Each chip assembles the Schur contributions of
-  its local cones; the global G/AW/AQc reduce over ICI with a single psum
+  its local cones; the global G/AW/AQc reduce with a single psum
   per iteration (the additive structure of
   /root/reference/conex/cone_program.cc:68-76), and the scalar aggregations
   (norm maxima, slack-eigenvalue extrema) ride along as pmax/pmin.  The

@@ -17,7 +17,7 @@ Python equivalents of the reference's MATLAB preprocessing utilities
 
 These run once on the host (numpy) before the compiled solve; the
 decomposition turns one big sparse LMI into many small dense ones — which
-is exactly the batched-cone shape the TPU solver wants.
+is exactly the batched-cone shape the compiled solver wants.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Host-side program builder.
 
-The TPU-native analogue of the reference's ``Program``
+The analogue of the reference's ``Program``
 (/root/reference/conex/cone_program.h:99-243): collects constraints, then
 stages them as a static tuple of cone blocks + arrays and invokes the single
 jitted solve loop.  Unlike the reference there is no mutable arena — solver
@@ -56,7 +56,7 @@ class Result:
     dual_infeasible: bool
     stats_inv_sqrt_mu: np.ndarray
     stats_norminf_d: np.ndarray
-    mu_stalled: bool = False  # TPU addition: mu made no progress (see
+    mu_stalled: bool = False  # not in the reference: mu made no progress (see
     # SolverConfig.mu_stall_iterations); iterate is returned as-is
     _raw: SolveResult = dataclasses.field(repr=False, default=None)
 

@@ -8,8 +8,8 @@ sparse programs is layered on top later (conex_tpu/supernodal).
 Mode semantics (reference kkt_solver.cc:172-199):
   LLT  — used when there are no equality-constraint duals.
   LDLT — indefinite KKT systems.  The reference uses a *fully pivoted* LDLT
-         with pivots clamped to +/-1e-9 (RLDLT.h:381-393).  Pivoting is
-         TPU-hostile (data-dependent permutations defeat XLA tiling), so we
+         with pivots clamped to +/-1e-9 (RLDLT.h:381-393).  Pivoting needs
+         data-dependent permutations that defeat XLA tiling, so we
          use a fixed-order LDLT with the same +/-1e-9 clamp and compensate
          with iterative refinement — the reference's own remedy
          (kkt_solver.cc:248-261).
@@ -81,19 +81,19 @@ def _ldlt_scalar(K):
     return M, fail
 
 
-# Panel width for the blocked LDLT.  128 matches the MXU systolic-array
-# tile; the within-panel factor is the O(P) scalar loop, everything else
-# (panel solve + trailing update) is batched matmuls.
+# Panel width for the blocked LDLT: an untuned default.  The within-panel
+# factor is the O(P) scalar loop, everything else (panel solve + trailing
+# update) is batched matmuls.
 LDLT_PANEL = 128
 
 
 def _ldlt_clamped(K, panel: int = LDLT_PANEL):
     """Blocked right-looking fixed-order LDLT with the +/-1e-9 pivot clamp.
 
-    TPU-native replacement for the pure scalar loop: the scalar variant
-    performs n sequential steps each doing a full (n, n) rank-1 update on
-    the VPU; this version does n/P scalar steps of size (P, P) and moves
-    the O(n^2 P) trailing work onto the MXU as (n, P) x (P, n) matmuls.
+    Replacement for the pure scalar loop: the scalar variant performs n
+    sequential steps each doing a full (n, n) rank-1 update; this version
+    does n/P scalar steps of size (P, P) and moves the O(n^2 P) trailing
+    work into (n, P) x (P, n) matmuls.
     Same clamp semantics (fixed elimination order, so the pivot sequence
     and clamping decisions match the scalar variant exactly in exact
     arithmetic).  reference: BlockLDLTInPlace
@@ -155,12 +155,11 @@ def _ldlt_clamped(K, panel: int = LDLT_PANEL):
         colnew = jax.lax.dynamic_update_slice(colnew, Dfac, (j0, 0))
         colnew = jnp.where(below_mask, L21, colnew)
         M = jax.lax.dynamic_update_slice(M, colnew, (0, j0))
-        # MXU trailing update.  L21 vanishes on rows < j0 + P, so this
-        # touches only the trailing square.  Routed through the active
-        # split-precision mode (algebra/mm.py): on TPU a default f32
-        # matmul truncates operands to bf16, which would make the blocked
-        # factor the precision bottleneck under schur_precision x3/x6 —
-        # the ladder keeps the factor at the configured precision.
+        # Trailing update.  L21 vanishes on rows < j0 + P, so this touches
+        # only the trailing square.  Routed through the active precision
+        # mode (algebra/mm.py), so the blocked factor runs at the
+        # configured precision and a default-precision product (TF32 on a
+        # GPU) does not become the precision bottleneck.
         M = M - mm.matmul(L21 * d[None, :], L21.T)
         return M
 
@@ -194,9 +193,8 @@ def factor(K: jnp.ndarray, mode: int, structure=None,
     ``island_dtype``: optional precision island (e.g. jnp.float64) for the
     dense path — the assembled KKT matrix is cast up before factorization
     and ``solve`` casts solutions back to the rhs dtype.  The matrix is
-    tiny relative to the cone kernels, so this buys f64 factorization
-    robustness at negligible cost even with emulated f64 on TPU
-    (SolverConfig.kkt_island_dtype)."""
+    small relative to the cone kernels, so this buys f64 factorization
+    robustness at little cost (SolverConfig.kkt_island_dtype)."""
     if island_dtype is not None and structure is None:
         if (jnp.dtype(island_dtype) == jnp.dtype("float64")
                 and not jax.config.jax_enable_x64):

@@ -108,7 +108,7 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, axis_name=None,
     (cone_program.cc:339-340, constraint_manager.h:107-124,
     equality_constraint.cc:13-28).  The global system is a sum of independent
     per-block contributions; with ``axis_name`` set (constraint-sharded SPMD
-    via shard_map) the partial sums ride ICI as a single psum — the additive
+    via shard_map) the partial sums travel as a single psum — the additive
     structure called out in SURVEY.md §5.8.
 
     With a CompressedSupernodalStructure the matrix is returned as the flat
@@ -346,8 +346,8 @@ def _solve_impl_inner(
     *global* rank sum across devices."""
     dtype = b.dtype
     m = b.shape[0]
-    # Materialize per-block solve-loop invariants (e.g. the fused Schur
-    # kernel's padded operator layout) once, outside the Newton loop.
+    # Materialize per-block solve-loop invariants (e.g. the Ozaki slices of
+    # a dense LMI operator) once, outside the Newton loop.
     blocks = tuple(
         blk.prepare() if hasattr(blk, "prepare") else blk for blk in blocks
     )
@@ -400,10 +400,13 @@ def _solve_impl_inner(
         update_mu = (i == 0) | (~(initial_centering | final_centering)) | s.warmstart_aborted
 
         # --- Assemble (cone_program.cc:338-341) ---
-        G, AW, AQc, w_dot_c, c_dot_Qc = assemble(
-            blocks, eq_blocks, s.ws, n_kkt, m, dtype, axis_name,
-            kkt_structure,
-        )
+        # The "schur" scope names these ops in device traces
+        # (benchmarks/trace_plain_paths.py reads it).
+        with jax.named_scope("schur"):
+            G, AW, AQc, w_dot_c, c_dot_Qc = assemble(
+                blocks, eq_blocks, s.ws, n_kkt, m, dtype, axis_name,
+                kkt_structure,
+            )
 
         # --- First-iteration rescaling (cone_program.cc:343-357) ---
         if config.enable_rescaling:
@@ -535,7 +538,7 @@ def _solve_impl_inner(
             if config.fixed_iterations:
                 stop = jnp.asarray(False)
 
-            # --- Mu-stall detection (TPU addition; see SolverConfig) ---
+            # --- Mu-stall detection (not in the reference; see SolverConfig) ---
             if config.mu_stall_iterations > 0 and not config.fixed_iterations:
                 rel = jnp.abs(k - s.k) / jnp.maximum(jnp.abs(s.k), 1e-30)
                 stalled_now = (

@@ -7,7 +7,7 @@ updates scattered into *other* cliques' storage through precomputed pointers
 (/root/reference/conex/triangular_matrix_workspace.cc:123-159,
 supernodal_solver.h:64-106, block_triangular_operations.cc:184-219).
 
-This module is the TPU-native equivalent.  Storage is ONE flat device array
+This module is the equivalent.  Storage is ONE flat device array
 holding the padded per-clique blocks
 
     buf = [ D_0 .. D_{K-1} | O_0 .. O_{K-1} | dump ]

@@ -4,7 +4,7 @@ Composes the two round-2 designs that VERDICT r2 #5 found disjoint:
 
 * supernodal/compressed.py — the factor lives in ONE flat buffer of padded
   per-clique blocks (O(sum of block sizes), never a dense (N, N) matrix),
-  the TPU equivalent of the reference's contiguous per-clique storage with
+  the equivalent of the reference's contiguous per-clique storage with
   pointer-scattered separator updates
   (/root/reference/conex/triangular_matrix_workspace.cc:123-159).
 * supernodal/distributed.py — the clique tree is cut into an upward-closed

@@ -1,8 +1,8 @@
 """Distributed supernodal factorization: clique subtrees sharded over chips.
 
 The reference factors the whole clique tree on one core
-(BlockCholeskyInPlace, block_triangular_operations.cc:184-219).  On a TPU
-mesh the clique tree is instead *partitioned*:
+(BlockCholeskyInPlace, block_triangular_operations.cc:184-219).  On a
+device mesh the clique tree is instead *partitioned*:
 
 - the tree is cut into a small upward-closed **root region** and the forest
   of subtrees hanging below it;
@@ -13,7 +13,7 @@ mesh the clique tree is instead *partitioned*:
   separator set R (upward-closedness + the running-intersection property
   guarantee subtree locality: a variable shared by two subtrees is owned by
   a root-region supernode, so cross-subtree coupling flows ONLY through R);
-- one ``psum`` over ICI combines the R-block contributions, after which the
+- one ``psum`` combines the R-block contributions, after which the
   (small) root system is factored replicated on every device;
 - solves mirror this: local forward substitution, psum of the R residual
   contributions, replicated root solve, local backward substitution, and a

@@ -1,6 +1,6 @@
 """Supernodal block Cholesky / clamped-LDLT over a clique tree.
 
-TPU-native re-implementation of the reference's supernodal KKT machinery
+A JAX re-implementation of the reference's supernodal KKT machinery
 (supernodal_solver.{h,cc}, block_triangular_operations.{h,cc},
 kkt_solver.{h,cc}).  The clique ordering and fill-in are computed once on
 the host (ordering.py); the resulting *static* supernode/separator index

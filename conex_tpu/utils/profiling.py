@@ -1,6 +1,6 @@
 """Per-phase timing and XLA trace capture.
 
-TPU equivalent of the reference's compile-time macro timers
+Equivalent of the reference's compile-time macro timers
 (CONEX_ENABLE_TIMER, debug_macros.h:18-47, instrumented at
 cone_program.cc:338/359/412/421 for Assemble/Factor/Solve/Update): runs
 each phase of one Newton iteration as its own jitted call with

@@ -5,7 +5,8 @@
  *
  * The implementation (conex_tpu_c.c) embeds CPython and drives
  * conex_tpu.interface.Conex, so a C or MATLAB (loadlibrary) caller of
- * libconex.so can switch to libconex_tpu.so and solve on the TPU.
+ * libconex.so can switch to libconex_tpu.so and solve on JAX's default
+ * device (a GPU where one is present).
  */
 #ifndef CONEX_TPU_API_H
 #define CONEX_TPU_API_H

@@ -3,7 +3,7 @@
 % Drop-in counterpart of the reference's util/ConexProgram.m
 % (/root/reference/interfaces/matlab/util/ConexProgram.m:28-38): the same
 % loadlibrary/calllib pattern against the same CONEX_* ABI, pointed at
-% libconex_tpu.so so the solves run through the TPU-native solver.
+% libconex_tpu.so so the solves run through the JAX solver.
 %
 % Every method maps to one extern-C symbol of interfaces/conex_tpu.h;
 % tests/test_matlab_twin.py drives the identical call sequence through

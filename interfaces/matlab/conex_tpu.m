@@ -3,7 +3,7 @@
 %   [x, y, info] = conex_tpu(A, b, c, K)
 %
 % Counterpart of the reference's interfaces/matlab/conex.m:1-2 (a drop-in
-% sedumi.m replacement), pointed at the TPU-native solver.  Supported
+% sedumi.m replacement), pointed at the JAX solver.  Supported
 % cones: K.l (nonnegative orthant — the reference shim errors on this;
 % supported here because the ABI exposes CONEX_AddDenseLinearConstraint)
 % and K.s (PSD blocks, any count).  K.f/K.q/K.r are not supported — use

@@ -2,7 +2,7 @@
 
 The compressed path must reproduce the dense-backed supernodal results
 exactly (same block algorithm, different storage) while allocating only
-O(sum of block sizes) memory — the TPU-native counterpart of the
+O(sum of block sizes) memory — the counterpart of the
 reference's contiguous per-clique factor buffer + pointer scatter
 (/root/reference/conex/triangular_matrix_workspace.cc:123-159,
 block_triangular_operations.cc:184-219, supernodal_assembler.cc:72-141).

@@ -134,7 +134,7 @@ def test_mu_stall_detector_exits_early():
     """A scaling-pathological LP pins k at the minimum-mu clamp and (like
     the reference, which has no detector) would burn the whole iteration
     budget; with mu_stall_iterations set the solve exits after the stall
-    window and reports mu_stalled (TPU addition, SolverConfig)."""
+    window and reports mu_stalled (not in the reference, SolverConfig)."""
     A = np.array([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]])
     c = np.array([1.0, 0.0, 1e6, 1e6])
     b = np.array([1.0, 0.0])

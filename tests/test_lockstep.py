@@ -1,7 +1,7 @@
 """Lockstep trajectory parity against the actual reference solver.
 
-Runs the reference conex C++ solver (built from the read-only sources by
-baseline/build_and_measure.sh into baseline/dump_trajectory) and conex_tpu
+Runs the reference conex C++ solver (baseline/dump_trajectory.cc, committed
+as baseline/dump_trajectory_verbose) and conex_tpu
 on the *same* LP instance with the same configuration, and compares the
 per-iteration sqrt(1/mu) trajectory and the final solution.  For LPs the
 two implementations evaluate identical closed-form arithmetic in f64, so
@@ -9,7 +9,6 @@ the trajectories must agree to near machine precision — the strongest
 parity statement available (SURVEY.md §7 hard part #1).
 """
 
-import glob
 import json
 import os
 import subprocess
@@ -17,68 +16,24 @@ import subprocess
 import numpy as np
 import pytest
 
+from chip_smoke import REFERENCE_BIN, write_instance
 from conex_tpu import Program, SolverConfig
 
-BASELINE_DIR = os.path.join(os.path.dirname(__file__), "..", "baseline")
-BIN = os.path.join(BASELINE_DIR, "dump_trajectory")
-EIGEN_INC = "/opt/venv/lib/python3.12/site-packages/tensorflow/include"
-REFERENCE = "/root/reference"
 
 
 @pytest.fixture(scope="module", autouse=True)
 def reference_binary():
-    """Build baseline/dump_trajectory from the read-only reference sources
-    if it is not present (it is a gitignored artifact).  A fresh checkout
-    therefore runs the lockstep parity tests instead of silently skipping
-    them; a missing toolchain/reference fails loudly."""
-    if os.path.exists(BIN):
-        return BIN
-    if not os.path.isdir(REFERENCE) or not os.path.isdir(EIGEN_INC):
-        pytest.fail(
-            "baseline/dump_trajectory is missing and the reference sources "
-            f"or Eigen headers are unavailable ({REFERENCE}, {EIGEN_INC})"
-        )
-    cmd = [
-        "g++", "-O2", "-std=c++17", "-DNDEBUG", "-DEIGEN_NO_DEBUG",
-        "-DCONEX_VERBOSE=0", "-include", "cassert", "-include", "array",
-        f"-I{EIGEN_INC}", f"-I{REFERENCE}",
-        os.path.join(BASELINE_DIR, "dump_trajectory.cc"),
-        *sorted(glob.glob(os.path.join(REFERENCE, "conex", "*.cc"))),
-        "-o", BIN,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        pytest.fail(
-            "building the reference lockstep binary failed:\n" + proc.stderr
-        )
-    return BIN
+    if not os.access(REFERENCE_BIN, os.X_OK):
+        pytest.fail(f"reference binary {REFERENCE_BIN} is missing or not "
+                    "executable")
+    return REFERENCE_BIN
 
 
 def run_reference(A, c, b, config: SolverConfig, tmp_path, kind="lp"):
-    if kind == "lp":
-        n, m = A.shape
-    else:
-        m, n = A.shape[0], A.shape[1]
     inst = tmp_path / "instance.txt"
-    with open(inst, "w") as f:
-        def fmt(v):
-            return format(float(v), ".17g")
-
-        f.write(
-            f"{kind} {n} {m} {config.max_iterations} "
-            f"{int(config.enable_line_search)} "
-            f"{int(config.enable_rescaling)} "
-            f"{fmt(config.divergence_upper_bound)} "
-            f"{fmt(config.inv_sqrt_mu_max)} {fmt(config.dinf_upper_bound)} "
-            f"{fmt(config.final_centering_tolerance)}\n"
-        )
-        for row in A.reshape(-1, A.shape[-1]):
-            f.write(" ".join(fmt(v) for v in row) + "\n")
-        for row in np.atleast_2d(c):
-            f.write(" ".join(fmt(v) for v in row) + "\n")
-        f.write(" ".join(fmt(v) for v in b) + "\n")
+    write_instance(inst, kind, A, c, b, config)
     out = subprocess.run(
-        [BIN, str(inst)], capture_output=True, text=True, check=True
+        [REFERENCE_BIN, str(inst)], capture_output=True, text=True, check=True
     )
     return json.loads(out.stdout.strip().splitlines()[-1])
 

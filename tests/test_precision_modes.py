@@ -10,7 +10,6 @@ arithmetic cannot solve.
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from conex_tpu import Program, SolverConfig
@@ -47,10 +46,9 @@ def test_modes_trace_and_solve_f64(mode):
 
 def test_x6_with_f64_island_solves_f32():
     """The mixed-precision operating point (x6 Schur products + f64 KKT
-    island, PRECISION.md) solves f32 instances.  On TPU this is the
-    configuration that rescues instances bf16-truncated plain f32 cannot
-    drive to mu=1e-6; on CPU plain f32 is genuine f32 (see
-    test_no_bf16_copy_off_tpu) so both paths solve here."""
+    island, PRECISION.md) solves f32 instances.  It is meant for cards
+    whose default f32 product is coarser than f32 (TF32); on CPU plain f32
+    is genuine f32, so both paths solve here."""
     A, C, b = _sdp(12, 6, 42, np.float32)
 
     mixed = Program(6, dtype=np.float32)
@@ -65,21 +63,27 @@ def test_x6_with_f64_island_solves_f32():
 
 
 def test_no_bf16_copy_off_tpu():
-    """prepare() must not create the bf16 operand copy off-TPU: XLA only
-    truncates f32 matmul operands to bf16 on TPU, so on CPU/GPU the copy
-    would silently regress genuine-f32 slack products to bf16."""
+    """prepare() adds no narrowed copy of the operator on any backend: a
+    bf16 copy would silently regress f32 slack products to bf16.  Outside
+    ozaki mode on f64 data it returns the block unchanged."""
+    import dataclasses
+
     from conex_tpu.algebra import mm
     from conex_tpu.cones.psd import DenseLMICone
 
-    A = jnp.zeros((1, 2, 4, 4), jnp.float32)
-    C = jnp.zeros((1, 4, 4), jnp.float32)
-    blk = DenseLMICone(A=A, C=C)
-    with mm.mode("default"):
-        prepared = blk.prepare()
-    if jax.default_backend() == "tpu":
-        assert prepared.A_lo is not None
-    else:
-        assert prepared.A_lo is None
+    for dtype in (jnp.float32, jnp.float64):
+        A = jnp.zeros((1, 2, 4, 4), dtype)
+        C = jnp.zeros((1, 4, 4), dtype)
+        blk = DenseLMICone(A=A, C=C)
+        for mode in mm.MODES:
+            with mm.mode(mode):
+                prepared = blk.prepare()
+            fields = {f.name for f in dataclasses.fields(prepared)}
+            assert fields == {"A", "C", "vars_", "A_ozp", "A_ozs"}
+            if mode == "ozaki" and dtype == jnp.float64:
+                assert prepared.A_ozp is not None
+            else:
+                assert prepared is blk
 
 
 def test_island_solution_matches_f64_reference():
